@@ -1,22 +1,22 @@
-"""Production-scale 3D Poisson on a single TPU chip: ~1M DoFs solved fully
+"""Production-scale 3D Poisson on one device: ~1M DoFs solved fully
 matrix-free to float64 accuracy.
 
 Everything is sum-factorized (ops/sumfac.py): no dense tabulation, no
 extraction matrix, no assembled operator -- the stiffness apply, the RHS,
 and the error norm are all sliding-window contraction chains.
 
-Two solver paths (SOLVER env var), both measured on one v5e at 96^3
-(941k DoFs):
+Two solver paths (SOLVER env var), at 96^3 (941k DoFs):
   mg (default): geometric-multigrid-preconditioned f64 CG with a float32
       V-cycle (5 nested levels, exact knot-insertion transfers,
       solvers/multigrid.py) -- 20 h-INDEPENDENT iterations to 8e-12
-      relative residual, 8.2 s warm with Jacobi V(2,2) smoothing
-      (fully cached; first call pays one compile).  Chebyshev smoothing
-      (Multigrid.enable_chebyshev) reaches 5e-17 -- f64 machine zero --
-      in the same 20 iterations at ~2x the per-cycle cost;
+      relative residual with Jacobi V(2,2) smoothing.  Chebyshev
+      smoothing (Multigrid.enable_chebyshev) reaches 5e-17 -- f64
+      machine zero -- in the same 20 iterations at ~2x the per-cycle
+      cost;
   refine: mixed-precision iterative refinement (f32 CG sweeps inside,
-      f64 residuals outside, solvers/refinement.py) -- 5e-13 in 39 s,
-      but the inner unpreconditioned CG iteration count grows ~1/h.
+      f64 residuals outside, solvers/refinement.py) -- 5e-13, but the
+      inner unpreconditioned CG iteration count grows ~1/h.
+No H100 time is recorded yet.
 
 (The dense per-element tabulation of this problem would occupy ~10 TB;
 the reference's FE-extraction representation is larger still.)
@@ -35,11 +35,9 @@ from tigar_tpu.models.space import SplineSpace
 from tigar_tpu.ops.sumfac import (make_sumfac_identity_operator,
                                   sumfac_linear_form, sumfac_l2_error)
 from tigar_tpu.solvers.refinement import refine_solve
+from tigar_tpu.config import configure_compilation_cache
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.dirname(os.path.abspath(__file__)))),
-                      ".jax_cache"))
+configure_compilation_cache()
 
 p = int(os.environ.get("P", "2"))
 NEL = int(os.environ.get("NEL", "96"))

@@ -1,13 +1,10 @@
 """Measure nested iteration (StencilNewton.solve_nested) vs the flat
 from-zero mixed-precision solve on the bench shell workload.
 
-Usage (TPU):  python scripts/bench_nested.py [nel] [mode]
+Usage:  python scripts/bench_nested.py [nel] [mode]
   nel   : fine resolution (default 128)
-  mode  : "chord" (coarse stage frozen zero-state stencil; the only safe
-          mode when the coarse level is 64^2 -- its per-step jet-Hessian
-          build re-pays a ~300-500 s hidden worker-side compile per
-          process), "rebuild" (full coarse Newton; fine when the coarse
-          level is 128^2), or "both"
+  mode  : "chord" (coarse stage frozen zero-state stencil: no coarse
+          tangent builds), "rebuild" (full coarse Newton), or "both"
 Prints timings + step counts for flat vs nested on stderr.
 """
 
@@ -26,9 +23,8 @@ def main():
     import jax
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(root, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from tigar_tpu.config import configure_compilation_cache
+    configure_compilation_cache()
     import jax.numpy as jnp
 
     from tigar_tpu.ops.knots import uniform_knots

@@ -1,17 +1,10 @@
-"""Shell-residual assembly variants, honest chained-scan timing on TPU:
-baseline (chunked vmap) vs remat'd density vs unchunked, f32.
+"""Shell-residual assembly variants, f32: baseline (chunked vmap) vs
+remat'd density vs unchunked.
 
-Hunting HBM-traffic reductions in the reverse-mode residual path
+Hunts device-memory-traffic reductions in the reverse-mode residual path
 (ops/assembly.py element_residuals): remat recomputes the density forward
-during the backward pass instead of storing intermediates.
-
-MEASURED (one v5e, 128^2, f32, 2026-08-16):
-  baseline_chunk8192 : 22.1 ms   remat_chunk8192 : 23.3 ms
-  unchunked          : 23.4 ms   remat_unchunked : 23.4 ms
-All within noise -- the residual path is NOT spill/traffic-bound at this
-size; it is bound by the pointwise AD compute chain.  Keep the baseline
-(chunked, no remat); further gains need a cheaper density (hand-derived
-shell variations), not scheduling knobs.
+during the backward pass instead of storing intermediates.  No H100
+measurement recorded yet.
 """
 
 import os
@@ -30,9 +23,8 @@ def main():
     import jax
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, here)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(here, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from tigar_tpu.config import configure_compilation_cache
+    configure_compilation_cache()
     import jax.numpy as jnp
     import jax.tree_util as jtu
 

@@ -1,10 +1,10 @@
-"""Measure the assembled-stencil tangent path on the real TPU at bench
+"""Measure the assembled-stencil tangent path on the device at bench
 scale: K-route element-matrix build (ops/assembly.element_matrices_adjoint),
 stencil assembly (ops/stencil), stencil apply -- the operator pipeline for
 the MG-preconditioned production Newton step.
 
 Timing: python-level chains of dependent jitted calls ending in a scalar
-fetch (see scripts/bench_adjoint.py docstring)."""
+fetch (bench.py docstring)."""
 import os
 import sys
 import time
@@ -14,10 +14,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from tigar_tpu.config import configure_compilation_cache
+
+configure_compilation_cache()
 
 import jax.numpy as jnp
 

@@ -1,8 +1,8 @@
-"""Probe (round 5, VERDICT item #1): the two-patch production bench point
+"""Probe: the two-patch production bench point
 driven by the CONSISTENT EnergyNitscheCoupling instead of the
 displacement+rotation penalty.
 
-Questions to answer (on CPU first, then the chip):
+Questions to answer (on CPU first, then the GPU):
   1. does MultiPatchStencilNewton converge with the Nitsche coupling and a
      PRODUCTIVE f32 production phase (no start_polish)?
   2. what floor does the f64 polish certify (penalty floored at ~7e-8 rel
@@ -12,13 +12,13 @@ Questions to answer (on CPU first, then the chip):
   3. step time vs the penalty point.
 
 Usage:
-  python scripts/probe_nitsche_mp.py [nel] [cpu|tpu] [nitsche|penalty]
+  python scripts/probe_nitsche_mp.py [nel] [cpu|gpu] [nitsche|penalty]
 """
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import jax
@@ -31,7 +31,8 @@ BETA_C = float(sys.argv[4]) if len(sys.argv) > 4 else 10.0
 if DEV == "cpu":
     jax.config.update("jax_platforms", "cpu")
 else:
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from tigar_tpu.config import configure_compilation_cache
+    configure_compilation_cache()
 
 import jax.numpy as jnp
 
@@ -134,7 +135,7 @@ def main():
         spline, res_adj, coupling, mg_splines=splines[1:],
         mg_couplings=couplings[1:], cg_iters=15, polish_cg_iters=40,
         setup_log=print, polish_tangent="f64",
-        polish_residual_device="cpu" if DEV == "tpu" else "accel",
+        polish_residual_device="accel",
         build_quad_degree=2, rebuild_rel=0.1)
     print(f"setup {time.time() - t0:.1f}s "
           f"(fine omega scale {ns._fine_omega_scale:.3f})")
@@ -145,10 +146,10 @@ def main():
     t_solve = time.time() - t0
     r0 = float(jnp.linalg.norm(ns._res(ns.asm64, ns.mask64,
                                        jnp.zeros_like(Usol))))
-    if DEV == "tpu":
-        other = ns.true_rel_residual(Usol, r0)
+    if DEV == "cpu":
+        other = rel  # same backend; cross-check only meaningful on a GPU
     else:
-        other = rel  # same backend; cross-check only meaningful on TPU
+        other = ns.cpu_true_residual(Usol) / r0
     print(f"SOLVE: {t_solve:.1f}s {steps} steps rel={rel:.3e} "
           f"dU_rel={dU_rel:.2e} cross={other:.3e}")
     print(f"jump_norm={float(coupling.jump_norm(Usol)):.3e}")

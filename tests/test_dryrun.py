@@ -30,8 +30,7 @@ def test_make_device_mesh_exact_size():
 def test_dryrun_multichip_8_devices():
     import __graft_entry__
     # conftest provides 8 CPU devices, so this runs the real sharded step
-    # in-process (the driver path re-execs a subprocess when the ambient
-    # backend cannot present n devices).
+    # in-process (dryrun_multichip raises when a process has fewer).
     __graft_entry__._dryrun_impl(8)
 
 

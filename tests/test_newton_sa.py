@@ -78,7 +78,7 @@ def _nl_poisson(ctx, u, v):
     nonlinear AND NONSYMMETRIC tangent (the 2 u du grad u . grad v term
     -- this residual is not the gradient of any energy), so the solver
     must run krylov="bicgstab"; CG produces garbage steps near
-    convergence (measured on the chip -- see SANewton's docstring)."""
+    convergence (see SANewton's docstring)."""
     k = 1.0 + u.val ** 2
     return k * jnp.sum(ctx.grad(u) * ctx.grad(v)) - 10.0 * v.val
 

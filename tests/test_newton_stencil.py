@@ -195,8 +195,8 @@ def test_hessian_build_full_solve():
 
 
 def test_polish_residual_device_cpu():
-    """polish_residual_device="cpu" (host-native-f64 polish residuals;
-    3.2x faster than TPU-emulated f64, measured) must converge the full
+    """polish_residual_device="cpu" (host-CPU f64 polish residuals) must
+    converge the full
     solve identically and keep the cross-backend residual machinery
     consistent: _res64 must equal the accelerator residual to f64
     roundoff at a random state."""

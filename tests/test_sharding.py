@@ -1,6 +1,6 @@
 """Multi-device tests on the virtual 8-CPU mesh: element-sharded assembly
 and solves must match single-device results to machine precision (the
-TPU-native analog of running the reference demos under mpirun,
+JAX analog of running the reference demos under mpirun,
 SURVEY.md section 2.4).
 """
 

@@ -1,4 +1,4 @@
-"""tigar_tpu: a TPU-native isogeometric analysis (IGA) framework in JAX.
+"""tigar_tpu: an isogeometric analysis (IGA) framework in JAX.
 
 Re-designed from scratch with the capability surface of tIGAr
 (github.com/david-kamensky/tIGAr): B-spline / NURBS / multi-patch /

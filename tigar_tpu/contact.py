@@ -7,10 +7,10 @@ phi(r) = k/2 (r_max - r)^2 for r < r_max, with pairs closer than R_self in
 the REFERENCE configuration excluded (self-contact exclusion,
 reef-knot.py:148-152, 206-214).
 
-TPU-native re-design: the reference finds pairs with a scipy cKDTree and
+Re-design: the reference finds pairs with a scipy cKDTree and
 writes forces/tangents into PETSc objects entry by entry (explicitly noted
 as serial-only, reef-knot.py:35-37).  Here interactions are evaluated as an
-ALL-PAIRS masked distance computation -- static shapes, batched on the MXU,
+ALL-PAIRS masked distance computation -- static shapes, batched,
 O(n^2) but far faster than tree construction for the n <= O(10^4)
 collocation sets these problems use -- and forces/tangents come from AD of
 the total pair energy through the spline point-evaluation operator, so they

@@ -136,8 +136,8 @@ class QP(NamedTuple):
     """Optional dict of precomputed per-point quantities attached by
     model-specific preprocessors (e.g. the Kirchhoff-Love reference-surface
     frame from models/shell.py precompute_shell_reference) -- geometry-only
-    work hoisted out of the per-assembly density, which matters on TPU
-    where f64 sqrt/div emulation dominates pointwise densities."""
+    work hoisted out of the per-assembly density (sqrt/div are the costly
+    pointwise operations)."""
 
     # ---- differential operators (physical space) --------------------------
 

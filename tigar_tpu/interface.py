@@ -577,17 +577,16 @@ class InterfaceForm:
                            nu=self.nu, surfJ=self.surfJ)
 
     def energy(self, U, params=None):
-        # pinned true-f32 contractions: interface energies mix scales
-        # (penalty pd ~ 1e9 displacement terms vs pr ~ 1e6 rotation
-        # terms in the SAME pointwise density), so on TPU the default
-        # bf16 MXU passes put eps_bf16 * pd absolute noise on the
-        # smaller-scale terms -- in f32 tangent blocks that noise
-        # EXCEEDS the rotation/bending-scale entries entirely and the
-        # assembled K32 goes indefinite (measured on the chip: the f32
-        # V-cycle preconditioner built from it de-SPDs and the mixed
-        # FCG polish leaves a 40x linear residual; CPU IEEE-f32 twin
-        # 1.05).  The jets/density ops are tiny per-point dots; true-f32
-        # passes cost nothing measurable.
+        # pinned full-f32 contractions (also the package default,
+        # config.py): interface energies mix scales (penalty pd ~ 1e9
+        # displacement terms vs pr ~ 1e6 rotation terms in the SAME
+        # pointwise density), so reduced-precision (bf16/TF32) products
+        # put eps * pd absolute noise on the smaller-scale terms -- in
+        # f32 tangent blocks that noise EXCEEDS the rotation/bending-
+        # scale entries entirely and the assembled K32 goes indefinite
+        # (observed with bf16 passes: the f32 V-cycle preconditioner
+        # built from it de-SPDs and the mixed FCG polish leaves a 40x
+        # linear residual against 1.05 in IEEE f32).
         with jax.default_matmul_precision("highest"):
             p = self.params if params is None else params
             ua = self._jets(U, self.side_a)
@@ -697,8 +696,8 @@ def _iform_tangent_block(form, u_sub, pos_a, pos_b, params):
 
         return cols, jax.hessian(f)(z0)
 
-    # pinned true-f32: see InterfaceForm.energy -- bf16 MXU passes on the
-    # mixed-scale (pd/pr) per-point Hessians make the f32 block
+    # pinned full f32: see InterfaceForm.energy -- reduced-precision
+    # products on the mixed-scale (pd/pr) per-point Hessians make the f32 block
     # indefinite, which breaks the Schwarz-smoothed V-cycle outright.
     with jax.default_matmul_precision("highest"):
         cols, E = jax.vmap(point)(pos_a, pos_b, form.side_a, form.side_b,

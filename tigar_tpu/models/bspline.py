@@ -1,9 +1,9 @@
 """Tensor-product B-spline scalar bases and explicit B-spline control meshes.
 
-TPU-native counterpart of the reference's ``BSpline``/``BSpline1``/
+Counterpart of the reference's ``BSpline``/``BSpline1``/
 ``ExplicitBSplineControlMesh`` (tIGAr/BSplines.py:164-963).  A scalar basis
 here does not generate an FE extraction mesh; it tabulates itself on its own
-Bezier-element grid (ops/tabulation.py) for batched quadrature on TPU.
+Bezier-element grid (ops/tabulation.py) for batched quadrature.
 """
 
 from __future__ import annotations

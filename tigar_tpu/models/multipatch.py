@@ -302,7 +302,7 @@ def merge_coincident_dofs(basis: MultiPatchBSplineBasis, bnets, tol=1e-10):
     """Build a MergedBasis + merged homogeneous control net by identifying
     control points of different patches that coincide in physical space
     (the reference's planned scipy-KDTree IPER construction,
-    BSplines.py:1070-1072).  All-pairs distances (TPU-era answer to the
+    BSplines.py:1070-1072).  All-pairs distances (a batched answer to the
     KD-tree) on the dehomogenized control points.
 
     Coincidence is transitive: connected components of the d<tol graph are

@@ -162,8 +162,7 @@ class ShellReference(NamedTuple):
     reference metric/curvature and the curvilinear-to-local-Cartesian
     transformation matrix.  Hoisting this out of the density removes the
     reference-side cross products, normalizations (sqrt/div), and the 2x2
-    frame inverse from EVERY assembly/AD evaluation -- the dominant f64
-    emulation cost on TPU."""
+    frame inverse from EVERY assembly/AD evaluation."""
     a: Any    # [2,2] reference midsurface metric
     b: Any    # [2,2] reference curvature
     ea: Any   # [2,2] covariant -> local-Cartesian transformation
@@ -282,9 +281,8 @@ def svk_shell_adjoint(ctx, y, E_mod, nu, h_th):
     + sum(F.h * v.h)  for every test jet v (Fval = 0; add external loads
     on top).  Assembling with ops/assembly.residual_vector_adjoint then
     involves NO reverse-mode AD at all -- the v-contraction becomes an
-    explicit einsum with the tabulations.  On TPU this is the fast
-    emulated-f64 path: the reverse sweep through the residual density
-    generates far more f64-emulation code than these closed forms.
+    explicit einsum with the tabulations: the reverse sweep through the
+    residual density generates far more code than these closed forms.
 
     Derivation (transpose of the linear tail of svk_shell_residual, all
     cross-product transposes via the triple-product identity
@@ -358,8 +356,7 @@ def svk_shell_tangent_adjoint(ctx, y, w, E_mod, nu, h_th):
     d/de svk_shell_residual(ctx, y + e*w, v, ...) == sum(dF.g * v.g)
     + sum(dF.h * v.h).  Assembling dF over the test space gives the exact
     tangent ACTION K(y) @ W with forward-mode AD only (JVP through the
-    closed-form adjoint) -- no reverse sweep anywhere, which is the cheap
-    structure for emulated f64."""
+    closed-form adjoint) -- no reverse sweep anywhere."""
     import jax as _jax
     return _jax.jvp(lambda yy: svk_shell_adjoint(ctx, yy, E_mod, nu, h_th),
                     (y,), (w,))[1]
@@ -387,8 +384,8 @@ def svk_shell_hessian(ctx, y, E_mod, nu, h_th):
     ``jacfwd`` sweep of ``svk_shell_adjoint`` inside
     ``ops/assembly.element_matrices_adjoint`` with a FIXED set of small
     coefficient-tensor contractions, which is the cheap structure for the
-    TPU tangent-stencil build (the dominant term of the production Newton
-    step: measured 49% of the step at 128^2 before this path existed).
+    tangent-stencil build (the dominant term of the production Newton
+    step at 128^2 on the earlier target).
 
     Derivation: with z = (g, h) the 18 non-val jet slots, materialize the
     LINEAR maps of the first-variation chain of ``midsurface_geometry``
@@ -484,8 +481,8 @@ def svk_shell_hessian(ctx, y, E_mod, nu, h_th):
     # ---- rank-1 row stack: K_dense = L^T R --------------------------------
     # Every full-[18,18] term is a sum of outer products l (x) r of
     # [18]-row pairs; stacking ALL of them into two [m, 18] factors turns
-    # the whole accumulation into ONE batched MXU matmul instead of a
-    # dozen HBM round trips over [npts, 18, 18] (the first implementation
+    # the whole accumulation into ONE batched matmul instead of a
+    # dozen device-memory round trips over [npts, 18, 18] (the first implementation
     # did the latter and measured 2.3x SLOWER than the jacfwd build).
     S = -(G @ Mb)                                     # u_c = S[:, c]
     mu_c = a2 @ S                                     # [2]

@@ -1,6 +1,6 @@
 """Multi-field spline function spaces and their generators.
 
-TPU-native counterpart of the reference's extraction-generator hierarchy
+Counterpart of the reference's extraction-generator hierarchy
 (AbstractExtractionGenerator / AbstractMultiFieldSpline / EqualOrderSpline /
 FieldListSpline, tIGAr/common.py:130-503, 1794-1970).  A generator here does
 not build an FE mesh or sparse extraction matrices; it only fixes the list

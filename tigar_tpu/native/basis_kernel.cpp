@@ -6,7 +6,7 @@
 // (tIGAr/BSplines.py:48-131), which evaluates ONE parametric point per
 // call because the FE-node loop was the preprocessing bottleneck.  Here the
 // kernel is batched over arrays of points (OpenMP across points) and also
-// returns derivatives to arbitrary order, since the TPU framework needs
+// returns derivatives to arbitrary order, since the JAX framework needs
 // parametric gradients/Hessians of the spline basis explicitly.
 //
 // Built with: g++ -O3 -fPIC -shared -fopenmp (see build.py); loaded via

@@ -2,9 +2,9 @@
 
 This replaces the reference's entire assembly stack -- FFC-generated element
 kernels called by DOLFIN ``assemble``, the PETSc MatPtAP projection MᵀAM and
-MᵀB extraction (tIGAr/common.py:1142-1234) -- with one TPU-friendly pattern:
+MᵀB extraction (tIGAr/common.py:1142-1234) -- with one batched pattern:
 
-  gather DoFs -> evaluate field jets at quad points (batched einsum on MXU)
+  gather DoFs -> evaluate field jets at quad points (batched einsum)
   -> vmapped pointwise density -> weighted sum / AD transpose -> scatter-add.
 
 Residual vectors are reverse-mode gradients of the (linear-in-test-function)
@@ -116,8 +116,8 @@ class DomainAssembler:
     def with_chunk(self, chunk):
         """Copy sharing all arrays but with a different ``lax.map`` chunk
         size (static -- changes trigger a re-trace).  Memory-heavy element
-        kernels (``element_matrices_adjoint``, especially in emulated f64
-        where every intermediate doubles) need a smaller chunk than the
+        kernels (``element_matrices_adjoint``, especially in f64 where
+        every intermediate doubles) need a smaller chunk than the
         residual default to bound HLO temps."""
         children, aux = self.tree_flatten()
         aux = aux[:-1] + (None if chunk is None else int(chunk),)
@@ -324,9 +324,9 @@ class DomainAssembler:
         jet: res(ctx, u, v) == sum(Fval*v.val) + sum(Fg*v.g) + sum(Fh*v.h).
         Assembly is then a pure einsum contraction with the tabulations (the
         exact transpose of the jet evaluation) -- no reverse-mode AD in the
-        element kernel.  This is the fast path for emulated-f64 TPU
-        assembly, where the reverse sweep through a pointwise density
-        generates far more emulation code than the explicit adjoint
+        element kernel.  This is the fast path for f64 assembly, where
+        the reverse sweep through a pointwise density generates far more
+        code than the explicit adjoint
         (models/shell.svk_shell_adjoint; forms.adjoint_of for the generic
         AD-at-a-point fallback)."""
         def elem(args):
@@ -351,7 +351,7 @@ class DomainAssembler:
         jet-Hessian of an adjoint-jet density (see
         ``element_residuals_adjoint``): forward-mode AD stays at the
         quadrature point over the small jet vector (dim J ~ nf*(1+d+d^2)),
-        and the local matrices come out as two batched MXU contractions
+        and the local matrices come out as two batched contractions
 
             K[q] = d(F_flat)/d(u_flat)   [J, J]   (jacfwd, J directions)
             E    = sum_q w_q B[q]^T K[q] B[q],    B[q] = d(u_flat)/d(uloc)
@@ -411,7 +411,7 @@ class DomainAssembler:
         Identical contraction structure to ``element_matrices_adjoint``
         (E = sum_q w_q B^T K B) but with the jacfwd sweep over the J jet
         directions replaced by ONE evaluation of the hand-derived Hessian
-        -- the fast TPU build path for densities with a known second
+        -- the fast build path for densities with a known second
         variation (models/shell.svk_shell_hessian cuts the dominant
         tangent-stencil build term of the production Newton step)."""
         from jax.flatten_util import ravel_pytree

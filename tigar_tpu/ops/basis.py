@@ -3,7 +3,7 @@
 The reference evaluates one parametric point at a time through an inline C++
 kernel compiled with pybind11 (tIGAr/BSplines.py:48-161, ``basisFuncsInner``)
 because a per-FE-node Python loop was the preprocessing bottleneck.  The
-TPU-native design removes that loop class entirely: evaluation is vectorized
+JAX design removes that loop class entirely: evaluation is vectorized
 over *arrays* of points (numpy for host-side preprocessing; the same
 recurrence is also implemented in native C++ in tigar_tpu/native for large
 unstructured tabulations).  Derivatives up to arbitrary order are computed

@@ -1,32 +1,20 @@
-"""f32 fast-path operator applies for generic element batches, and the
-writeup of the hand-written-Pallas-kernel investigation (VERDICT round-1
-item 10: "win or delete" -- measured: delete).
+"""f32 fast-path operator applies for generic element batches.
 
-WHY THERE IS NO PALLAS KERNEL HERE.  Two rounds of measurement (honest
-chained-scan timing, see bench.py) on a v5e chip, scalar p=2 stiffness
-apply:
-
-  66k DoFs / 65k elements, f32:
-    gather -> XLA einsum element apply -> scatter : 13.18 ms/apply
-    gather -> hand Pallas fused kernel -> scatter : 13.21 ms/apply
-    sum-factorized sliding-window apply (no gather/scatter, ops/sumfac.py)
-                                                  :  1.30 ms/apply  (10x)
-    sum-factorized, f64                           :  1.90 ms/apply
-
-  The Pallas kernel and the XLA einsum formulation are indistinguishable:
-  the fused elementwise chain was never the bottleneck -- the per-element
-  GATHER of coefficients and the SCATTER-ADD of results dominate (TPU
-  scatters serialize).  A kernel cannot fix a data-movement problem that
-  sits outside it.  The structural fix is to eliminate gather/scatter
-  entirely, which the tensor-product sum-factorized operators do with
-  shifted-slice windows; they are the production fast path for
-  tensor-product spaces (scalar: ops/sumfac.py; arbitrary forms and
-  multi-field: ops/sumfac_forms.py).
+There is no hand-written kernel here.  An earlier measurement of a fused
+hand kernel against the XLA einsum formulation of this apply found them
+indistinguishable: the per-element GATHER of coefficients and the
+SCATTER-ADD of results dominate, and a kernel cannot fix a data-movement
+problem that sits outside it.  The structural fix is to eliminate
+gather/scatter entirely, which the tensor-product sum-factorized
+operators do with shifted-slice windows; they are the fast path for
+tensor-product spaces (scalar: ops/sumfac.py; arbitrary forms and
+multi-field: ops/sumfac_forms.py).  Whether a Hopper kernel pays for the
+gather/scatter apply is an open, measured question.
 
 This module keeps the XLA-fused element apply for spaces with EXPLICIT
 element connectivity (multi-patch unions, T-splines with ragged nshl),
 where windows do not exist and gather/scatter is inherent.  Compute dtype
-is float32 (TPU-native); pair with solvers/refinement.py for f64 accuracy.
+is float32; pair with solvers/refinement.py for f64 accuracy.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Knot-vector utilities: the univariate layer of the spline core.
 
-TPU-native re-design of the univariate B-spline bookkeeping in the reference
+Re-design of the univariate B-spline bookkeeping in the reference
 (tIGAr/BSplines.py:14-351, classes ``uniformKnots``/``BSpline1``).  All
 heavy evaluation is batched over arrays of parameter values (see
 ops/basis.py); this module holds the host-side (numpy) metadata: unique

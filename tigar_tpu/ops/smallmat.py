@@ -1,8 +1,7 @@
 """Closed-form determinants/inverses for 1x1..3x3 matrices.
 
-TPU has no f64 LU decomposition, and batched tiny LU is MXU-hostile anyway;
-every metric/Jacobian inverse in IGA is d x d with d <= 3, so closed forms
-are both required and faster.
+Batched tiny LU is wasteful: every metric/Jacobian inverse in IGA is d x d
+with d <= 3, so closed forms are simpler and faster.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ point ([nel, nq, nen] arrays) -- fine in 1D/2D, but in 3D the dense
 tabulation grows like nel * (p+1)^6 and becomes terabytes at production
 sizes.  Sum factorization exploits the Kronecker structure of tensor-product
 bases: field evaluation and its transpose decompose into chains of small
-per-direction contractions (batched GEMMs on the MXU), with memory reduced
+per-direction contractions (batched GEMMs), with memory reduced
 to per-direction 1D tables + the geometry factor.
 
 This module provides the factorized stiffness/mass apply
@@ -21,11 +21,10 @@ dynamic slices of the coefficient grid.
 Two apply formulations, selected automatically:
  - sliding-window (maximal-continuity open knots, stride-1 windows): every
    direction contraction is p+1 shifted slice multiply-adds -- no gathers,
-   the fast path (measured on a v5e chip at 96^3 elements / 941k DoFs, p=2:
-   144 ms f64 / 44 ms f32 per stiffness apply; the dense tabulation would
-   need ~10 TB and cannot exist at all);
- - generic gather-based windows (reduced-continuity knot vectors), ~25x
-   slower on TPU because multi-axis gathers scalarize.
+   the fast path (at 96^3 elements / 941k DoFs, p=2, the dense
+   tabulation would need ~10 TB and cannot exist at all);
+ - generic gather-based windows (reduced-continuity knot vectors), slower
+   because multi-axis gathers dominate.
 The generic AD assembly remains the reference and handles arbitrary forms.
 """
 
@@ -209,7 +208,7 @@ def _sumfac_apply_sliding(data, W, ck, cm, meta):
     """Sliding-window formulation for maximal-continuity (C^{p-1}) open
     knot vectors, where element DoF windows have stride 1: every direction
     contraction becomes p+1 shifted slice multiply-adds -- no gathers, no
-    batched dot_generals, no big transposes (TPU gathers with
+    batched dot_generals, no big transposes (gathers with
     multi-dimensional index vectors are the dominant cost of the generic
     path).  Quadrature-field axis layout: (e_{D-1}, q_{D-1}, ..., e_0, q_0).
     """

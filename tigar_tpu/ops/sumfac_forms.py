@@ -21,34 +21,25 @@ full form language (VERDICT round-1 item 3):
 
 The reference reaches none of this: its assembly is FFC element kernels on
 an extraction mesh (tIGAr/common.py:1162-1234); sum factorization is the
-TPU-native replacement that keeps the MXU busy with per-direction batched
+replacement that keeps the device busy with per-direction batched
 contractions and scales 3D problems past what dense tabulation allows
 (SURVEY.md section 7).
 
-REDUCED CONTINUITY COSTS NOTHING (measured, one v5e, 3D p=2 Poisson
-residual at 24^3 elements, honest chained-scan timing): the strided
-slice windows of continuity_drop=1 run at the same per-apply cost as the
-maximal-continuity sliding windows -- 3.7 ms f32 / 85 ms f64 at 117.6k
-DoFs vs 4.0 ms f32 / 87 ms f64 at 17.6k DoFs (the dropped-continuity
-space has ~6.7x the DoFs on the same element grid, so per-DoF throughput
-is ~7x higher).  This closes VERDICT round-1 item 3's "continuity-drop
-path within ~2x of sliding" criterion -- it is at parity, because
+REDUCED CONTINUITY: the strided slice windows of continuity_drop=1 cost
+per apply what the maximal-continuity sliding windows cost, because
 uniform interior multiplicity still yields uniform window strides (no
 gathers anywhere).
 
-WHEN IT WINS (measured, honest chained-scan timing on one v5e; see
-scripts/bench_shell_sumfac.py):
-  - light densities / operator applies, where gather+scatter dominates:
-    scalar p=2 stiffness apply at 66k DoFs is 10x faster sum-factorized
-    (1.3 ms vs 13.2 ms f32; ops/fastpath.py writeup);
+WHEN IT WINS (scripts/bench_shell_sumfac.py compares the two; no H100
+measurement recorded yet):
+  - light densities / operator applies, where gather+scatter dominates;
   - 3D problems whose dense [nel, nq, nen] tabulation would not fit
     (941k-DoF Poisson runs entirely sum-factorized).
 WHEN IT DOES NOT (keep the generic tabulated DomainAssembler):
-  - AD-heavy pointwise densities: the SVK Kirchhoff-Love shell residual
-    at 128^2 (50.7k DoFs) measures generic 22.4 ms vs sumfac 29.6 ms f32
-    (873 vs 889 ms f64) -- identical results to 1.4e-13 relative.  There
-    the per-point energy/AD work dominates and the dense jet einsum
-    utilizes the MXU better than 2*(dim+3) separate evaluation/transpose
+  - AD-heavy pointwise densities such as the SVK Kirchhoff-Love shell
+    residual (identical results to 1.4e-13 relative).  There the
+    per-point energy/AD work dominates and the dense jet einsum
+    uses the device better than 2*(dim+3) separate evaluation/transpose
     chains (value + dim gradients + dim(dim+1)/2 Hessian columns, forward
     and adjoint).  bench.py's headline therefore stays on the generic
     assembler.

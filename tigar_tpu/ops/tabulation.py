@@ -1,9 +1,9 @@
-"""Per-Bezier-element basis tabulation: the TPU-native extraction format.
+"""Per-Bezier-element basis tabulation: the extraction format.
 
 The reference represents every spline basis as a sparse extraction matrix M
 mapping IGA DoFs to nodal DoFs of a C0/C-1 finite-element space on an
 "extraction mesh", and assembles FE matrices with FEniCS before projecting
-with PETSc MatPtAP (tIGAr/common.py:130-503, 1176-1204).  On TPU, the
+with PETSc MatPtAP (tIGAr/common.py:130-503, 1176-1204).  Here the
 structured Bezier-element grid *is* the data layout: we tabulate every
 supported basis function (value, parametric gradient, parametric Hessian) at
 every quadrature point of every element once, as dense batched arrays, and

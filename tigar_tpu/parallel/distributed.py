@@ -2,25 +2,25 @@
 
 The reference spans hosts through MPI: every generator takes an
 ``mpi4py`` comm and DOLFIN partitions the extraction mesh across ranks
-(tIGAr/common.py:35-39, 139-157).  The TPU-native analog is JAX
-multi-controller SPMD: one process per host joins a coordination service
+(tIGAr/common.py:35-39, 139-157).  The JAX analog is multi-controller
+SPMD: one process per GPU host joins a coordination service
 (``jax.distributed.initialize``), ``jax.devices()`` becomes the GLOBAL
-device list (ICI within a slice, DCN across slices), and the same
-element-sharded GSPMD programs of ``parallel.sharding`` run unchanged --
-XLA places the assembly AllReduce over the right fabric.
+device list (NVLink within a host, the cluster network across hosts),
+and the same element-sharded GSPMD programs of ``parallel.sharding`` run
+unchanged -- XLA hands the assembly AllReduce to NCCL.
 
-Launch recipe (v5p pod slice; one process per host):
+Launch recipe for GPU hosts (one process per host, each driving all of
+its local GPUs):
 
     TIGAR_COORDINATOR=<host0>:8476 TIGAR_NUM_PROCS=<n> TIGAR_PROC_ID=<i> \
         python my_job.py
 
-with ``initialize_distributed()`` called before any backend use.  On TPU
-pods ``jax.distributed.initialize()`` auto-detects all three values from
-the TPU metadata, so bare ``initialize_distributed()`` suffices.  For
-CPU-only validation (this machine, CI), pass ``cpu_devices_per_process``
-to force the CPU backend with gloo cross-process collectives -- the same
-code path the multiprocess dryrun exercises
-(__graft_entry__.dryrun_multichip with TIGAR_DRYRUN_PROCS=2).
+with ``initialize_distributed()`` called before any backend use.  All
+three values must be given (arguments or environment): nothing on a
+plain GPU host tells JAX about the cluster.  For CPU-only validation (CI),
+pass ``cpu_devices_per_process`` to force the CPU backend with gloo
+cross-process collectives -- the same code path the multiprocess dryrun
+exercises (__graft_entry__.dryrun_multichip with TIGAR_DRYRUN_PROCS=2).
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
 
     Arguments default to the TIGAR_COORDINATOR / TIGAR_NUM_PROCS /
     TIGAR_PROC_ID environment variables; with none set and no arguments,
-    falls back to ``jax.distributed.initialize()`` auto-detection (TPU
-    pods).  ``cpu_devices_per_process`` forces the CPU backend with that
+    falls back to ``jax.distributed.initialize()`` auto-detection (for
+    cluster managers JAX recognizes, e.g. SLURM).  ``cpu_devices_per_process`` forces the CPU backend with that
     many virtual devices and gloo collectives (validation path).
     Returns (process_id, num_processes)."""
     coordinator_address = coordinator_address or os.environ.get(

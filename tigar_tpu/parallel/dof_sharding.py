@@ -2,7 +2,7 @@
 
 Round-3 VERDICT item #6.  The production GSPMD path (parallel/sharding.py)
 shards the element batch and REPLICATES every DoF vector -- fine at ~1e6
-DoFs on a v5p-8, a soft memory/AllReduce ceiling beyond.  This module is
+DoFs, a soft memory/AllReduce ceiling beyond.  This module is
 the stated analog of the reference's distributed row storage (PETSc MPIAIJ
 vectors/matrices, tIGAr/common.py:1474-1492, SURVEY.md section 5.7): the
 DoF axis itself is sharded over the 1D device mesh and no device (or
@@ -23,7 +23,7 @@ right-neighbor halo of H = p layers:
     scatter: contributions that landed in the halo rows ppermute BACK to
         the right neighbor and add into its first H layers.
 
-Both exchanges are nearest-neighbor ppermutes over ICI -- O(H * ncp_fast)
+Both exchanges are nearest-neighbor ppermutes (NCCL) -- O(H * ncp_fast)
 words per link -- replacing the replicated path's full-length AllReduce.
 Validated by tests/test_dof_sharding.py (exactness vs the unsharded
 assembler on an 8-device mesh + per-shard memory accounting) and by the
@@ -310,9 +310,8 @@ class DoFShardedNewton:
         (GSPMD lowers them to per-shard partial sums + a scalar
         AllReduce -- the only collective beyond the halos).
 
-    The per-element matvec is dtype-dispatched like ops/stencil: f64 on
-    an accelerator runs the elementwise VPU form (an emulated-f64
-    dot_general lowering is catastrophic, CLAUDE.md round-3)."""
+    The per-element matvec is the broadcast multiply-reduce of
+    solvers/newton_sa.ElemTangent in both dtypes."""
 
     def __init__(self, ds: DoFShardedAssembler, adjoint_res,
                  cg_iters=60):
@@ -359,10 +358,7 @@ class DoFShardedNewton:
             asm = DomainAssembler.tree_unflatten(aux, children)
             x_ext = halo_ext(x3_loc * m3_loc)
             xe = x_ext[asm.cat_conn]                     # [nel, nloc]
-            if xe.dtype == jnp.float64:
-                ye = jnp.sum(E_loc * xe[:, None, :], axis=-1)
-            else:
-                ye = jnp.einsum("eab,eb->ea", E_loc, xe)
+            ye = jnp.sum(E_loc * xe[:, None, :], axis=-1)
             y_ext = jnp.zeros(nf * (R + H) * fast,
                               dtype=xe.dtype).at[asm.cat_conn].add(ye)
             y_loc = halo_fold(y_ext)

@@ -1,12 +1,14 @@
-"""GSPMD distribution over TPU device meshes.
+"""GSPMD distribution over device meshes.
 
 Replaces the reference's MPI domain decomposition (DOLFIN-partitioned
 meshes + PETSc MPIAIJ matrices + the IGA-DoF locality permutation,
-tIGAr/common.py:1435-1669 and SURVEY.md section 2.4) with the TPU-native
+tIGAr/common.py:1435-1669 and SURVEY.md section 2.4) with the JAX
 pattern: the Bezier-element batch axis of every tabulation/geometry array is
 sharded across a 1D ``jax.sharding.Mesh``; DoF vectors stay replicated, and
 the gather -> density -> scatter-add assembly pipeline compiles to
-per-shard partial sums + an AllReduce over ICI.  The reference's
+per-shard partial sums + an AllReduce (NCCL over NVLink between the GPUs
+of one host).  The devices are all-to-all connected, so the mesh follows
+the algorithm alone: one axis, no topology shape.  The reference's
 ``generatePermutation`` (aligning IGA DoFs with element partitions) is
 unnecessary: XLA places the reduction; no DoF renumbering is needed.
 
@@ -29,7 +31,7 @@ def make_device_mesh(n_devices=None, devices=None):
     """1D device mesh over the element axis.
 
     Raises if fewer than ``n_devices`` devices are available -- silently
-    truncating would let an "8-way" run execute on one chip unnoticed."""
+    truncating would let an "8-way" run execute on one device unnoticed."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:

@@ -8,15 +8,14 @@ prolongation V_coarse -> V_fine (Boehm's algorithm, ops/refine.py), so a
 geometric V-cycle with weighted-Jacobi smoothing and a precomputed dense
 coarse inverse yields h-independent CG iteration counts.
 
-TPU-native design notes:
+Design notes:
   - transfers are separable: one small [ncp_f, ncp_c] matrix per parametric
-    direction per field, applied as per-axis tensordots on the MXU (the
+    direction per field, applied as per-axis tensordots (the
     Kronecker product is never materialized);
   - all level operators are the framework's jit-cached matrix-free tangent
     actions (ExtractedSpline.tangent_action) -- no sparse matrices;
   - the coarse solve is a precomputed dense inverse (host LU at setup),
-    applied as a single matmul: TPU-friendly, and avoids jnp.linalg.solve,
-    which does not lower for emulated f64 on TPU;
+    applied as a single matmul per V-cycle;
   - the V-cycle is a fixed linear operator (zero initial guess, symmetric
     pre/post smoothing), hence a valid SPD preconditioner for CG.
 """
@@ -297,9 +296,8 @@ class Multigrid:
                                for f in range(s.space.nfields))
                          for s in self.splines]
 
-        # coarse dense inverse (host LU; jnp.linalg.solve has no TPU-f64
-        # lowering, and a stored inverse turns the coarse solve into one
-        # MXU matmul per V-cycle)
+        # coarse dense inverse (host LU at set-up: a stored inverse turns
+        # the coarse solve into one matmul per V-cycle)
         coarse = self.splines[-1]
         A_c = np.asarray(coarse.assemble_matrix(
             form, U=self.levels[-1]["U"], params=params))

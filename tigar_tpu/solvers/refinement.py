@@ -1,6 +1,6 @@
 """Mixed-precision iterative refinement.
 
-TPUs have no native float64; XLA emulates it at ~5-10x cost.  The
+f32 arithmetic moves half the bytes of f64 and runs faster.  The
 verification targets (<=1e-10 relative L2) need f64 *accuracy*, but not f64
 *arithmetic everywhere*: classical iterative refinement runs the inner
 Krylov solve in fast float32 (e.g. the fused fast-path operators of
@@ -40,7 +40,7 @@ def refine_solve(action_f64, action_f32, b, tol=1e-12, max_sweeps=40,
     # NOTE: cg_fixed_iters is deliberately called eagerly -- its fori_loop
     # compiles once and the inner operator stays a cached XLA call.
     # Wrapping the sweep in an outer jax.jit was measured to inflate the
-    # TPU compile ~30x (jit-of-jit inlining) for identical runtime.
+    # compile ~30x (jit-of-jit inlining) for identical runtime.
     for sweep in range(max_sweeps):
         r = b - action_f64(x)
         rel = float(jnp.linalg.norm(r) / bnorm)
